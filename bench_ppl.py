@@ -1,4 +1,4 @@
-"""Perplexity-parity harness: quantized fused decode vs the bf16 path.
+"""Perplexity-parity harness: quantized decode vs the bf16 path.
 
 North-star acceptance (BASELINE.md): INT8 / INT4 weight quantization and
 8-bit KV caches must match the full-precision model's perplexity within
@@ -9,15 +9,15 @@ on *language-model loss*, end to end, through the production decode path:
 1. train a byte-level Llama on a real-text corpus (this repo's own docs —
    no network, fully hermetic) with ``train.make_train_step`` until it has
    non-trivial structure;
-2. score the corpus teacher-forced through the **fused stack megakernel**
-   (``models.speculative.verify_step``, the n-row whole-stack kernel — the
-   same weight path, dequant path, and KV-cache path production decode
-   uses, block by block so every KV row is written by the kernel itself);
-3. report ppl per operating point (bf16 / int8 / int4-exact / int4-W4A8 /
-   fp8-KV / int8-KV) and the delta vs bf16.
+2. score the corpus teacher-forced through the n-row decode step
+   (``models.speculative.verify_step`` — the same weight path, dequant
+   path, and KV-cache path production decode uses, block by block so every
+   KV row is written by the decode path itself);
+3. report ppl per operating point (bf16 / int8 / int4 / fp8-KV / int8-KV)
+   and the delta vs bf16.
 
 Usage:
-    python bench_ppl.py                # tiny model, ~2 min on CPU or TPU
+    python bench_ppl.py                # tiny model, ~2 min on a CPU
     python bench_ppl.py --scale small  # 4-layer/512-hidden, longer train
     python bench_ppl.py --steps 800 --tokens 4096
 
@@ -35,11 +35,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from clusterfusion_tpu.config import KernelConfig, LlamaConfig
-from clusterfusion_tpu.models import llama as model
-from clusterfusion_tpu.models.speculative import verify_step
-from clusterfusion_tpu.models.tokenizer import load_tokenizer
-from clusterfusion_tpu.train import make_optimizer, make_train_step
+from clusterfusion.config import LlamaConfig
+from clusterfusion.models import llama as model
+from clusterfusion.models.speculative import verify_step
+from clusterfusion.models.tokenizer import load_tokenizer
+from clusterfusion.train import make_optimizer, make_train_step
 
 _DOCS = ("README.md", "SURVEY.md", "BASELINE.md")
 
@@ -78,15 +78,14 @@ def train_model(cfg: LlamaConfig, toks: np.ndarray, steps: int,
 
 
 def score_ppl(params, cfg: LlamaConfig, toks: np.ndarray,
-              kcfg: KernelConfig = KernelConfig(),
               kv_dtype=jnp.bfloat16, block: int = 8,
-              window: int = 256, fused: bool = True) -> float:
-    """Teacher-forced perplexity through the fused n-row stack megakernel.
+              window: int = 256) -> float:
+    """Teacher-forced perplexity through the n-row decode step.
 
-    Every scored block runs the production decode path: fused dequant
-    matmuls, in-kernel RoPE, online softmax over the (possibly quantized)
-    KV cache, in-kernel KV append — so quantization error in *cache
-    contents* compounds across the context exactly as it would serving.
+    Every scored block runs the production decode math: dequantized
+    matmuls, RoPE, softmax over the (possibly quantized) KV cache, KV
+    append — so quantization error in *cache contents* compounds across
+    the context exactly as it would serving.
 
     The corpus is scored in independent ``window``-token segments (fresh
     cache, positions 0..window-1) so evaluation positions match the
@@ -101,7 +100,7 @@ def score_ppl(params, cfg: LlamaConfig, toks: np.ndarray,
             lg, kc, vc = verify_step(
                 params, kc, vc,
                 jax.lax.dynamic_slice(toks_j, (w0 + pos,), (block,)),
-                jnp.asarray(pos, jnp.int32), cfg, kcfg=kcfg, fused=fused)
+                jnp.asarray(pos, jnp.int32), cfg)
             lw = jax.nn.log_softmax(lg.astype(jnp.float32), axis=-1)
             n_tgt = block if pos + block < window else block - 1
             tgt = jax.lax.dynamic_slice(toks_j, (w0 + pos + 1,), (block,))
@@ -112,30 +111,23 @@ def score_ppl(params, cfg: LlamaConfig, toks: np.ndarray,
 
 
 def operating_points(params, gs: int = 128):
-    """(name, params, kcfg, kv_dtype) per north-star config.
-
-    gs=128 default: lane-aligned, so "int4_w4a8" points exercise the real
-    int8-MXU fast path (gs<128 falls back to the exact bf16 dequant — the
-    fine-grouped exact path is what "int4_g32" measures)."""
-    from clusterfusion_tpu.ops.quant import quantize_llama_params
+    """(name, params, kv_dtype) per quantized operating point."""
+    from clusterfusion.ops.quant import quantize_llama_params
     p8 = quantize_llama_params(params, "int8")
     p4 = quantize_llama_params(params, "int4", gs)
     p4f = quantize_llama_params(params, "int4", 32)
-    pts = [
-        ("bf16", params, KernelConfig(), jnp.bfloat16),
-        ("int8", p8, KernelConfig(), jnp.bfloat16),
-        ("int4", p4, KernelConfig(int4_w4a8=False), jnp.bfloat16),
-        ("int4_w4a8", p4, KernelConfig(int4_w4a8=True), jnp.bfloat16),
-        ("int4_g32", p4f, KernelConfig(int4_w4a8=False), jnp.bfloat16),
-        ("int8+fp8kv", p8, KernelConfig(), jnp.float8_e4m3fn),
-        ("int8+int8kv", p8, KernelConfig(), "int8"),
-        ("int4_w4a8+int8kv", p4, KernelConfig(int4_w4a8=True), "int8"),
-        # the full production point: int4 W4A8 weights, int8 KV, int8 LM head
-        ("int4_w4a8+int8kv+lm8",
-         quantize_llama_params(params, "int4", gs, lm_head=True),
-         KernelConfig(int4_w4a8=True), "int8"),
+    return [
+        ("bf16", params, jnp.bfloat16),
+        ("int8", p8, jnp.bfloat16),
+        ("int4", p4, jnp.bfloat16),
+        ("int4_g32", p4f, jnp.bfloat16),
+        ("int8+fp8kv", p8, jnp.float8_e4m3fn),
+        ("int8+int8kv", p8, "int8"),
+        ("int4+int8kv", p4, "int8"),
+        # int4 weights, int8 KV, int8 LM head
+        ("int4+int8kv+lm8",
+         quantize_llama_params(params, "int4", gs, lm_head=True), "int8"),
     ]
-    return pts
 
 
 def main():
@@ -167,8 +159,8 @@ def main():
                          verbose=args.verbose)
 
     base = None
-    for name, p, kcfg, kvd in operating_points(params):
-        ppl = score_ppl(p, cfg, toks, kcfg=kcfg, kv_dtype=kvd,
+    for name, p, kvd in operating_points(params):
+        ppl = score_ppl(p, cfg, toks, kv_dtype=kvd,
                         block=args.block, window=args.window)
         if base is None:
             base = ppl

@@ -4,7 +4,6 @@ loads a model, streams a completion, prints total time and tokens/sec.
 Usage:
     python chat.py --ckpt_dir <meta-or-hf dir> --tokenizer_path <spm.model|dir>
     python chat.py --synthetic          # random tiny model, byte tokenizer
-    USE_CLUSTER_FUSION=false python chat.py ...   # eager baseline
 """
 
 from __future__ import annotations
@@ -26,17 +25,13 @@ def main():
     ap.add_argument("--max_gen_len", type=int, default=512)
     ap.add_argument("--synthetic", action="store_true",
                     help="random weights + byte tokenizer (no checkpoint)")
-    ap.add_argument("--eager", action="store_true",
-                    help="disable the fused megakernel path")
     ap.add_argument("--quant", type=str, default=None,
                     choices=["int8", "int4"],
-                    help="weight-only quantization (dequant fused in-kernel)")
+                    help="weight-only quantization")
     ap.add_argument("--kv_fp8", action="store_true",
-                    help="store the KV cache as float8_e4m3 (capacity "
-                         "format; slow on v5e — no fp8 ALU)")
+                    help="store the KV cache as float8_e4m3")
     ap.add_argument("--kv_int8", action="store_true",
-                    help="store the KV cache as int8 + per-position scales "
-                         "(the TPU-native fast 8-bit KV format)")
+                    help="store the KV cache as int8 + per-position scales")
     ap.add_argument("--spec_draft", type=str, default=None,
                     help="draft checkpoint dir for speculative decoding "
                          "('synthetic' for a random tiny draft); forces "
@@ -45,35 +40,36 @@ def main():
                     help="draft tokens per speculative round")
     args = ap.parse_args()
 
-    from clusterfusion_tpu.config import LlamaConfig
-    from clusterfusion_tpu.models.generation import Llama
+    from clusterfusion.config import LlamaConfig
+    from clusterfusion.models.generation import Llama
+    from clusterfusion.utils.compile_cache import enable_compile_cache
 
     import jax.numpy as jnp
 
-    fused = not args.eager
+    enable_compile_cache()
     kv_dtype = ("int8" if args.kv_int8
                 else jnp.float8_e4m3fn if args.kv_fp8 else jnp.bfloat16)
     if args.synthetic:
         cfg = LlamaConfig.tiny(max_seq_len=args.max_seq_len)
-        gen = Llama.synthetic(cfg, fused=fused, quant=args.quant,
+        gen = Llama.synthetic(cfg, quant=args.quant,
                               kv_dtype=kv_dtype)
     else:
         assert args.ckpt_dir and args.tokenizer_path, \
             "--ckpt_dir/--tokenizer_path required (or --synthetic)"
         gen = Llama.build(args.ckpt_dir, args.tokenizer_path,
-                          max_seq_len=args.max_seq_len, fused=fused,
+                          max_seq_len=args.max_seq_len,
                           quant=args.quant, kv_dtype=kv_dtype)
 
     draft = None
     if args.spec_draft == "synthetic":
         dcfg = LlamaConfig.tiny(max_seq_len=args.max_seq_len)
-        draft = Llama.synthetic(dcfg, seed=1, fused=fused)
+        draft = Llama.synthetic(dcfg, seed=1)
     elif args.spec_draft:
         draft = Llama.build(args.spec_draft, args.tokenizer_path,
-                            max_seq_len=args.max_seq_len, fused=fused)
+                            max_seq_len=args.max_seq_len)
 
     toks = gen.tokenizer.encode(args.prompt, bos=True, eos=False)
-    print(f"[prompt: {len(toks)} tokens | fused={gen.fused}"
+    print(f"[prompt: {len(toks)} tokens"
           + (f" | quant={args.quant}" if args.quant else "")
           + (" | kv=fp8" if args.kv_fp8 else "")
           + (" | kv=int8" if args.kv_int8 else "")

@@ -7,8 +7,8 @@
 // (reference: include/H100/llama/kernel_batch_sglang.cuh:118-123,
 // README.md:55-76).  Here the framework owns that runtime: this module
 // manages the page pool and request admission on the host in C++, and emits
-// exactly the (block_table, seq_lens, positions) arrays the TPU paged
-// megakernel consumes (clusterfusion_tpu/ops/paged_decoder_layer.py).
+// exactly the (block_table, seq_lens, positions) arrays the paged
+// attention consumes (clusterfusion/ops/paged_attention.py).
 //
 // Design:
 // - Fixed pool of `num_pages` pages of `page_size` tokens; free pages kept

@@ -1,14 +1,13 @@
 #!/usr/bin/env bash
-# Eager-baseline chat launch — twin of the reference's scripts/llama2.sh
-# (USE_CLUSTER_FUSION=false + torchrun single-process; here the env var is
-# honored by models/generation.py and there is no process launcher: one
-# JAX process drives the chip).
+# Chat launch — twin of the reference's scripts/llama2.sh and
+# scripts/llama2_clusterfusion.sh (one JAX process drives the GPU; there is
+# no process launcher and no fused/unfused switch).
 set -euo pipefail
 
 export MODEL_PATH=${MODEL_PATH:-/models/llama-2-7b-chat}
 export TOKENIZER_PATH=${TOKENIZER_PATH:-/models/llama-2-7b/tokenizer.model}
 
-USE_CLUSTER_FUSION=false python "$(dirname "$0")/../chat.py" \
+python "$(dirname "$0")/../chat.py" \
   --ckpt_dir "$MODEL_PATH" \
   --tokenizer_path "$TOKENIZER_PATH" \
   --max_seq_len 1024 \

@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
-# The quantized production operating point (beyond the reference): INT4
-# W4A8 weights + INT8 KV cache through the whole-stack megakernel.
+# A quantized operating point (beyond the reference): INT4 weights + INT8
+# KV cache.
 set -euo pipefail
 
 export MODEL_PATH=${MODEL_PATH:-/models/llama-2-7b-chat}

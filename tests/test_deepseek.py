@@ -1,4 +1,4 @@
-"""DeepSeek MLA fused kernel vs fp32 oracle (DeepSeek-V2-lite geometry,
+"""DeepSeek MLA decode layer vs fp32 oracle (DeepSeek-V2-lite geometry,
 reference `deepseek/config.h:1-8`), with dynamic seqlens — the reference
 prototype only ever ran SEQ_LEN 4096."""
 
@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from clusterfusion_tpu.config import DeepSeekConfig
-from clusterfusion_tpu.ops import deepseek_decoder_layer
-from clusterfusion_tpu.ops.reference import deepseek_decoder_layer_ref
+from clusterfusion.config import DeepSeekConfig
+from clusterfusion.ops import deepseek_decoder_layer
+from clusterfusion.ops.reference import deepseek_decoder_layer_ref
 
 CFG = DeepSeekConfig(hidden_dim=1024, n_heads=4)   # scaled-down lite geometry
 

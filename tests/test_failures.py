@@ -7,9 +7,9 @@ import jax
 import numpy as np
 import pytest
 
-from clusterfusion_tpu.config import LlamaConfig
-from clusterfusion_tpu.models import llama as model
-from clusterfusion_tpu.runtime.serving import EngineHealthError, ServingEngine
+from clusterfusion.config import LlamaConfig
+from clusterfusion.models import llama as model
+from clusterfusion.runtime.serving import EngineHealthError, ServingEngine
 
 CFG = LlamaConfig.tiny(max_seq_len=64)
 

@@ -1,5 +1,5 @@
 """Combined-feature matrix: GQA x weight quantization x KV-cache dtype,
-all through the whole-stack megakernel decode path vs the eager oracle.
+all through the decode path vs the fp32 oracle.
 Single-feature tests live in their own files; this catches interactions
 (e.g. grouped-head layouts under int4 packing, fp8 casts in GQA dots).
 """
@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from clusterfusion_tpu.config import LlamaConfig
-from clusterfusion_tpu.models import llama as model
-from clusterfusion_tpu.ops.quant import quantize_llama_params
+from clusterfusion.config import LlamaConfig
+from clusterfusion.models import llama as model
+from clusterfusion.ops.quant import quantize_llama_params
 
 # GQA geometry: 8 query heads, 2 KV heads (group=4)
 GQA = LlamaConfig.tiny(n_heads=8, n_kv_heads=2, hidden_dim=1024,
@@ -24,30 +24,19 @@ def test_gqa_quant_kv_matrix(quant, kv_dtype):
     params = model.init_params(GQA, jax.random.PRNGKey(0))
     if quant:
         params = quantize_llama_params(params, quant, 128)
-    kcf, vcf = model.init_cache(GQA, dtype=kv_dtype)
-    kce, vce = kcf, vcf
+    kc, vc = model.init_cache(GQA, dtype=kv_dtype)
     tok = jnp.asarray(7, jnp.int32)
     for step in range(3):
         pos = jnp.asarray(step, jnp.int32)
-        lf, kcf, vcf = model.decode_step(params, kcf, vcf, tok, pos, GQA,
-                                         fused=True)
-        le, kce, vce = model.decode_step(params, kce, vce, tok, pos, GQA,
-                                         fused=False)
+        lf, kc, vc = model.decode_step(params, kc, vc, tok, pos, GQA)
     a = np.asarray(lf, np.float32)
-    b = np.asarray(le, np.float32)
+    b = np.asarray(model.reference_logits(params, jnp.full((3,), 7), GQA)[-1])
     assert np.all(np.isfinite(a))
     scale = max(float(np.max(np.abs(b))), 1.0)
-    # fused and eager share quant/cache semantics -> tight-ish bound
-    assert np.max(np.abs(a - b)) < 0.08 * scale, (quant, kv_dtype)
-    kf = np.asarray(kcf, np.float32)
-    ke = np.asarray(kce, np.float32)
-    # Layer 0 sees identical inputs on both paths, so its cache rows must
-    # agree to fp8 rounding: e4m3 has 3 mantissa bits, so bf16-level
-    # differences legitimately round to adjacent fp8 codes (1 ulp = 12.5%).
-    tol0 = 0.13 * np.maximum(np.abs(kf[0]), np.abs(ke[0])) + 0.03
-    assert np.all(np.abs(kf[0] - ke[0]) <= tol0), (quant, kv_dtype)
-    # Deeper layers accumulate fp8 attention differences from below; only
-    # sanity-bound them and require both paths wrote the same 3 positions.
-    assert np.max(np.abs(kf - ke)) < 0.5, (quant, kv_dtype)
-    assert not np.any(kf[:, :, 3:]) and not np.any(ke[:, :, 3:])
+    # bf16 activations; fp8 KV adds e4m3 rounding (3 mantissa bits)
+    tol = 0.05 if kv_dtype == jnp.bfloat16 else 0.15
+    assert np.max(np.abs(a - b)) < tol * scale, (quant, kv_dtype)
+    # exactly the 3 decoded positions were written, every one of them
+    kf = np.asarray(kc, np.float32)
+    assert not np.any(kf[:, :, 3:])
     assert np.all(np.any(kf[:, :, :3] != 0.0, axis=-1))

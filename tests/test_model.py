@@ -1,16 +1,15 @@
-"""End-to-end model tests on a tiny-but-tile-aligned Llama: the fused
-megakernel decode path must agree with the eager XLA path (the in-repo
-analogue of the reference's fused-vs-baseline chat comparison,
-`scripts/llama2*.sh`), and generation must run hermetically."""
+"""End-to-end model tests on a tiny Llama: decode and prefill must agree
+with the fp32 oracle forward (``model.reference_logits``), and generation
+must run hermetically."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from clusterfusion_tpu.config import LlamaConfig
-from clusterfusion_tpu.models import llama as model
-from clusterfusion_tpu.models.generation import Llama
+from clusterfusion.config import LlamaConfig
+from clusterfusion.models import llama as model
+from clusterfusion.models.generation import Llama
 
 CFG = LlamaConfig.tiny()
 
@@ -22,71 +21,66 @@ def setup():
     return params, k_cache, v_cache
 
 
+def _rel(a, b):
+    return float(jnp.max(jnp.abs(a - b)) / max(float(jnp.max(jnp.abs(b))),
+                                               1.0))
+
+
 def test_fused_decode_matches_eager(setup):
+    """One decode step after a prefill against the fp32 oracle; the K/V
+    rows it appends equal what a prefill of the same tokens writes."""
     params, k_cache, v_cache = setup
     toks = jnp.asarray([5, 17, 42, 9], jnp.int32)
     logits, kc, vc = model.prefill(params, k_cache, v_cache, toks, CFG)
 
     tok = jnp.asarray(7, jnp.int32)
     pos = jnp.asarray(len(toks), jnp.int32)
-    lf, kf, vf = model.decode_step(params, kc, vc, tok, pos, CFG, fused=True)
-    le, ke, ve = model.decode_step(params, kc, vc, tok, pos, CFG, fused=False)
-
-    err = float(jnp.max(jnp.abs(lf - le)))
-    assert err < 0.1, f"fused vs eager logits max err {err}"
-    # cache rows written at pos must agree
+    lf, kf, vf = model.decode_step(params, kc, vc, tok, pos, CFG)
+    seq = jnp.concatenate([toks, tok[None]])
+    want = model.reference_logits(params, seq, CFG)
+    assert _rel(lf, want[-1]) < 0.05
+    _, kp, vp = model.prefill(params, k_cache, v_cache, seq, CFG)
     np.testing.assert_allclose(
         np.asarray(kf[:, :, len(toks)], jnp.float32),
-        np.asarray(ke[:, :, len(toks)], jnp.float32), atol=0.05)
+        np.asarray(kp[:, :, len(toks)], jnp.float32), atol=0.05)
 
 
 def test_multistep_decode_consistency(setup):
-    """Teacher-forced 4-step decode: per-step logits of the fused path must
-    track the eager path (greedy argmax comparison is tie-unstable with
+    """Teacher-forced 4-step decode: per-step logits track the fp32 oracle
+    of the whole sequence (greedy argmax comparison is tie-unstable with
     random weights — near-flat logits flip on sub-tolerance differences)."""
     params, k_cache, v_cache = setup
     toks = jnp.asarray([1, 2, 3], jnp.int32)
-    logits, kc0, vc0 = model.prefill(params, k_cache, v_cache, toks, CFG)
-    start = jnp.argmax(logits[-1]).astype(jnp.int32)
-
-    kcf, vcf, kce, vce = kc0, vc0, kc0, vc0
-    tok = start
+    feed = jnp.asarray([11, 7, 301, 40], jnp.int32)
+    logits, kc, vc = model.prefill(params, k_cache, v_cache, toks, CFG)
+    want = model.reference_logits(params, jnp.concatenate([toks, feed]), CFG)
     for step in range(4):
         pos = jnp.asarray(len(toks) + step, jnp.int32)
-        lf, kcf, vcf = model.decode_step(params, kcf, vcf, tok, pos, CFG,
-                                         fused=True)
-        le, kce, vce = model.decode_step(params, kce, vce, tok, pos, CFG,
-                                         fused=False)
-        err = float(jnp.max(jnp.abs(lf - le)))
-        assert err < 0.1, f"step {step}: fused vs eager logits err {err}"
-        tok = jnp.argmax(le).astype(jnp.int32)   # force the eager choice
+        lf, kc, vc = model.decode_step(params, kc, vc, feed[step], pos, CFG)
+        err = _rel(lf, want[len(toks) + step])
+        assert err < 0.05, f"step {step}: decode vs oracle rel err {err}"
 
 
 def test_flash_prefill_matches_eager(setup):
-    """Whole-model prefill through the flash kernel vs the eager oracle."""
+    """Whole-model prefill against the fp32 oracle at every position."""
     params, k_cache, v_cache = setup
     toks = (jnp.arange(37, dtype=jnp.int32) * 13) % CFG.vocab_size
-    lf, kf, vf = model.prefill(params, k_cache, v_cache, toks, CFG, flash=True)
-    le, ke, ve = model.prefill(params, k_cache, v_cache, toks, CFG, flash=False)
-    scale = max(float(jnp.max(jnp.abs(le))), 1.0)
-    assert float(jnp.max(jnp.abs(lf - le))) < 0.05 * scale
-    np.testing.assert_allclose(np.asarray(kf, np.float32),
-                               np.asarray(ke, np.float32), atol=0.05)
+    lf, kf, vf = model.prefill(params, k_cache, v_cache, toks, CFG)
+    assert _rel(lf, model.reference_logits(params, toks, CFG)) < 0.05
+    assert np.isfinite(np.asarray(kf, np.float32)).all()
 
 
-@pytest.mark.parametrize("flash", [True, False])
-def test_chunked_prefill_matches_whole(setup, flash):
+@pytest.mark.parametrize("split", [16, 5])
+def test_chunked_prefill_matches_whole(setup, split):
     """prefill_chunk over two chunks == one-shot prefill (same logits tail,
     same caches) — the chunked-prefill capability the reference lacks."""
     params, k_cache, v_cache = setup
     toks = (jnp.arange(29, dtype=jnp.int32) * 7) % CFG.vocab_size
-    l1, k1, v1 = model.prefill(params, k_cache, v_cache, toks, CFG,
-                               flash=flash)
-    split = 16
+    l1, k1, v1 = model.prefill(params, k_cache, v_cache, toks, CFG)
     _, kc, vc = model.prefill_chunk(params, k_cache, v_cache, toks[:split],
-                                    CFG, pos0=0, flash=flash)
+                                    CFG, pos0=0)
     l2, kc, vc = model.prefill_chunk(params, kc, vc, toks[split:], CFG,
-                                     pos0=split, flash=flash)
+                                     pos0=split)
     scale = max(float(jnp.max(jnp.abs(l1))), 1.0)
     assert float(jnp.max(jnp.abs(l2[-1] - l1[-1]))) < 0.05 * scale
     np.testing.assert_allclose(np.asarray(kc, np.float32),
@@ -96,14 +90,14 @@ def test_chunked_prefill_matches_whole(setup, flash):
 
 
 def test_generation_engine_smoke():
-    eng = Llama.synthetic(CFG, fused=True)
+    eng = Llama.synthetic(CFG)
     out = eng.text_completion(["hello"], temperature=0.0, max_gen_len=8)
     assert len(out) == 1 and isinstance(out[0]["generation"], str)
     assert eng.stats.gen_tokens > 0
 
 
 def test_chat_template():
-    eng = Llama.synthetic(CFG, fused=True)
+    eng = Llama.synthetic(CFG)
     toks = eng._encode_dialog([
         {"role": "system", "content": "be brief"},
         {"role": "user", "content": "hi"},
@@ -120,9 +114,10 @@ def test_gqa_decode_matches_eager():
     logits, kc, vc = model.prefill(params, k_cache, v_cache, toks, cfg)
     tok = jnp.asarray(16, jnp.int32)
     pos = jnp.asarray(3, jnp.int32)
-    lf, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg, fused=True)
-    le, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg, fused=False)
-    assert float(jnp.max(jnp.abs(lf - le))) < 0.1
+    lf, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg)
+    want = model.reference_logits(
+        params, jnp.concatenate([toks, tok[None]]), cfg)
+    assert _rel(lf, want[-1]) < 0.05
 
 
 def test_batched_generate_matches_greedy_oracle():
@@ -146,7 +141,7 @@ def test_batched_generate_matches_greedy_oracle():
         for _ in range(n_gen - 1):
             lg, kc, vc = model.decode_step(
                 params, kc, vc, jnp.asarray(want[-1], jnp.int32),
-                jnp.asarray(pos, jnp.int32), cfg, fused=True)
+                jnp.asarray(pos, jnp.int32), cfg)
             want.append(int(jnp.argmax(lg)))
             pos += 1
         if eng.tokenizer.eos_id in want:        # generate cuts at eos
@@ -191,7 +186,7 @@ def test_llama3_rope_scaling_matches_hf_formula():
     """ops.rope.llama3_scaled_inv_freq must reproduce transformers'
     _compute_llama3_parameters exactly (Llama-3.1/3.2 rope_scaling)."""
     import numpy as np
-    from clusterfusion_tpu.ops.rope import llama3_scaled_inv_freq
+    from clusterfusion.ops.rope import llama3_scaled_inv_freq
 
     hd, theta = 128, 500000.0
     factor, low, high, orig = 8.0, 1.0, 4.0, 8192
@@ -219,9 +214,9 @@ def test_llama3_rope_scaling_matches_hf_formula():
 
 
 def test_llama31_scaled_decode_fused_matches_eager():
-    """The scaled tables flow through model.rope_table into every kernel
-    path: fused decode == eager with rope_scaling_factor=8, and the scaled
-    model's logits genuinely differ from the unscaled one."""
+    """The scaled tables flow through model.rope_table into every path:
+    decode matches the fp32 oracle with rope_scaling_factor=8, and the
+    scaled model's logits genuinely differ from the unscaled one."""
     import dataclasses
     cfg = LlamaConfig.tiny(max_seq_len=64, rope_style="neox",
                            rope_scaling_factor=8.0,
@@ -234,16 +229,16 @@ def test_llama31_scaled_decode_fused_matches_eager():
     _, kc, vc = model.prefill(params, kc, vc, prompt, cfg)
     tok = jnp.asarray(5, jnp.int32)
     pos = jnp.asarray(20, jnp.int32)
-    lf, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg, fused=True)
-    le, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg, fused=False)
+    lf, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg)
+    le = model.reference_logits(
+        params, jnp.concatenate([prompt, tok[None]]), cfg)[-1]
     scale = max(float(jnp.max(jnp.abs(le))), 1.0)
     assert float(jnp.max(jnp.abs(lf - le))) < 0.05 * scale
 
     cfg0 = dataclasses.replace(cfg, rope_scaling_factor=1.0)
     kc0, vc0 = model.init_cache(cfg0)
     _, kc0, vc0 = model.prefill(params, kc0, vc0, prompt, cfg0)
-    l0, _, _ = model.decode_step(params, kc0, vc0, tok, pos, cfg0,
-                                 fused=True)
+    l0, _, _ = model.decode_step(params, kc0, vc0, tok, pos, cfg0)
     assert float(jnp.max(jnp.abs(lf - l0))) > 0.01 * scale
 
 
@@ -253,7 +248,7 @@ def test_hf_loader_rope_scaling(tmp_path):
     import json
     import numpy as np
     from safetensors.numpy import save_file
-    from clusterfusion_tpu.models.checkpoint import load_hf_checkpoint
+    from clusterfusion.models.checkpoint import load_hf_checkpoint
 
     h, heads, kvh, hd, f, V = 256, 2, 1, 128, 512, 512
     rng = np.random.RandomState(3)

@@ -1,23 +1,22 @@
-"""Paged batch-decode fused kernel vs oracles.
+"""Paged batch-decode attention vs oracles.
 
-Covers both entries: the reference-parity sglang indptr/indices (page=1)
-API against the fp32 paged oracle, and the TPU-native block-table API
-(page>1) against the single-sequence oracle applied per request."""
-
-import math
+Covers the reference-parity sglang indptr/indices (page=1) op against the
+fp32 paged oracle, the block-table paged attention of the serving engine
+(page>1, in-place append) against ``ops.reference.paged_attention_ref``,
+and the Triton-route kernel in interpret mode against the same oracle."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from clusterfusion_tpu.config import KernelConfig
-from clusterfusion_tpu.ops import llama_decoder_layer_batch_decode_sglang
-from clusterfusion_tpu.ops.paged_decoder_layer import llama_decoder_layer_paged
-from clusterfusion_tpu.ops.decoder_layer import fuse_qkv_o_for_kernel
-from clusterfusion_tpu.ops.reference import (
+from clusterfusion.ops import llama_decoder_layer_batch_decode_sglang
+from clusterfusion.ops import paged_attention as pa
+from clusterfusion.ops.paged_attention import paged_attention
+from clusterfusion.ops.quant import Int8KV
+from clusterfusion.ops.reference import (
     llama_decoder_layer_batch_paged_ref,
-    llama_decoder_layer_sglang_ref,
+    paged_attention_ref,
 )
 
 HIDDEN = 512
@@ -80,183 +79,92 @@ def test_sglang_paged_parity():
     np.testing.assert_array_equal(np.asarray(got[2][0]), np.asarray(k_cache[0]))
 
 
+def _pools(rng, L, n_pages, kv, page, hd, kv_dtype=jnp.bfloat16):
+    shape = (L, n_pages, kv, page, hd)
+    out = []
+    for _ in range(2):
+        x = jnp.asarray(rng.randn(*shape), jnp.float32)
+        out.append(pa.pool_set_pages(pa.init_paged_pool(shape, kv_dtype),
+                                     jnp.arange(n_pages), x))
+    return out
+
+
+def _table(rng, B, width, n_pages):
+    return jnp.asarray(rng.permutation(n_pages - 1)[: B * width]
+                       .reshape(B, width).astype(np.int32) + 1)
+
+
 @pytest.mark.parametrize("page", [16, 64])
 def test_block_table_paged_vs_single_seq_oracle(page):
-    """Native block-table entry: each request checked against the
-    single-sequence fp32 oracle on its gathered contiguous cache."""
-    key = jax.random.PRNGKey(7)
-    ks = jax.random.split(key, 8)
-    dtype = jnp.bfloat16
-    B = 2
+    """Block-table paged attention with append, each request checked
+    against the fp32 oracle on its own pages; the new K/V lands at
+    ``table[b, len // page]``, row ``len % page``."""
+    rng = np.random.RandomState(7)
+    B, kv, g, hd, width, L = 2, 4, 1, 128, 4, 1
     lens = [page + 3, 2 * page]             # crosses page boundaries
-    max_pages = 4
-    num_pages = 16
-    L = 1
-
-    w_qkv, w_o, rms_w = _mk_weights(ks[0])
-    hg = HEADS  # one head group
-    per_head = (w_qkv.reshape(3, HEADS, HEAD_DIM, HIDDEN)
-                .transpose(1, 3, 0, 2).reshape(HEADS, HIDDEN, 3 * HEAD_DIM))
-    wo_per_head = w_o.T.reshape(HEADS, HEAD_DIM, HIDDEN)
-    wqkv_g, wo_g = fuse_qkv_o_for_kernel(per_head, wo_per_head, HEADS, 1,
-                                         HEAD_DIM, hg)
-
-    x = jax.random.normal(ks[1], (B, HIDDEN), dtype)
-    res = jax.random.normal(ks[2], (B, HIDDEN), dtype)
-    k_pool = jax.random.normal(ks[3], (L, num_pages, HEADS, page, HEAD_DIM), dtype)
-    v_pool = jax.random.normal(ks[4], (L, num_pages, HEADS, page, HEAD_DIM), dtype)
-
-    rng = np.random.RandomState(1)
-    table = jnp.asarray(rng.permutation(num_pages)[: B * max_pages]
-                        .reshape(B, max_pages).astype(np.int32))
-    seq_lens = jnp.asarray(lens, jnp.int32)
-    positions = seq_lens
-
-    max_pos = max(lens) + 1
-    angle = np.outer(np.arange(max_pos), 0.2 * np.arange(HEAD_DIM // 2) + 0.05)
-    cos_h, sin_h = np.cos(angle), np.sin(angle)
-    cos_t = jnp.asarray(np.concatenate([cos_h, cos_h], -1), jnp.float32)
-    sin_t = jnp.asarray(np.concatenate([sin_h, sin_h], -1), jnp.float32)
-
-    out, res_out, kp2, vp2 = jax.jit(
-        lambda *a: llama_decoder_layer_paged(
-            *a, layer_id=0, rms_w=rms_w[None], eps=1e-5, cos_t=cos_t,
-            sin_t=sin_t))(x, res, wqkv_g, wo_g, table, seq_lens, positions,
-                          k_pool, v_pool)
-
-    for b in range(B):
-        s = lens[b]
-        rows = []
-        for t in range(s):
-            pg, off = int(table[b, t // page]), t % page
-            rows.append(np.asarray(k_pool[0, pg, :, off]).reshape(HIDDEN))
-        kc = jnp.asarray(np.stack(rows))
-        rows = [np.asarray(v_pool[0, int(table[b, t // page]), :, t % page])
-                .reshape(HIDDEN) for t in range(s)]
-        vc = jnp.asarray(np.stack(rows))
-        want = llama_decoder_layer_sglang_ref(
-            x[b:b + 1], res[b:b + 1], w_qkv, w_o, kc, vc, rms_w, 1e-5,
-            jnp.asarray(cos_h[s], jnp.float32), jnp.asarray(sin_h[s], jnp.float32),
-            n_heads=HEADS, head_dim=HEAD_DIM)
-        assert _mx(out[b:b + 1], want[0]) < 1e-1, f"req {b} output"
-        assert _mx(res_out[b:b + 1], want[1]) < 2e-2, f"req {b} residual"
-        # new kv landed in the right pool slot
-        pg, off = int(table[b, s // page]), s % page
-        assert _mx(kp2[0, pg, :, off].reshape(1, HIDDEN), want[2]) < 5e-2
-        assert _mx(vp2[0, pg, :, off].reshape(1, HIDDEN), want[3]) < 5e-2
-
-
-def test_block_table_paged_multi_window():
-    """Force n_steps > 1 in the fused paged kernel (kv_chunk = 2 pages →
-    npp=2 over 4 pages = 2 windows): exercises the double-buffered window
-    gather and cross-window online-softmax accumulation that production
-    contexts > kv_chunk rows hit."""
-    page = 16
-    key = jax.random.PRNGKey(11)
-    ks = jax.random.split(key, 8)
-    dtype = jnp.bfloat16
-    B = 2
-    lens = [3 * page + 5, 4 * page - 1]     # spans both windows
-    max_pages = 4
-    num_pages = 16
-    L = 1
-
-    w_qkv, w_o, rms_w = _mk_weights(ks[0])
-    hg = HEADS
-    per_head = (w_qkv.reshape(3, HEADS, HEAD_DIM, HIDDEN)
-                .transpose(1, 3, 0, 2).reshape(HEADS, HIDDEN, 3 * HEAD_DIM))
-    wo_per_head = w_o.T.reshape(HEADS, HEAD_DIM, HIDDEN)
-    wqkv_g, wo_g = fuse_qkv_o_for_kernel(per_head, wo_per_head, HEADS, 1,
-                                         HEAD_DIM, hg)
-
-    x = jax.random.normal(ks[1], (B, HIDDEN), dtype)
-    res = jax.random.normal(ks[2], (B, HIDDEN), dtype)
-    k_pool = jax.random.normal(ks[3], (L, num_pages, HEADS, page, HEAD_DIM), dtype)
-    v_pool = jax.random.normal(ks[4], (L, num_pages, HEADS, page, HEAD_DIM), dtype)
-
-    rng = np.random.RandomState(5)
-    table = jnp.asarray(rng.permutation(num_pages)[: B * max_pages]
-                        .reshape(B, max_pages).astype(np.int32))
-    seq_lens = jnp.asarray(lens, jnp.int32)
-    positions = seq_lens
-
-    max_pos = max(lens) + 1
-    angle = np.outer(np.arange(max_pos), 0.2 * np.arange(HEAD_DIM // 2) + 0.05)
-    cos_h, sin_h = np.cos(angle), np.sin(angle)
-    cos_t = jnp.asarray(np.concatenate([cos_h, cos_h], -1), jnp.float32)
-    sin_t = jnp.asarray(np.concatenate([sin_h, sin_h], -1), jnp.float32)
-
-    kcfg = KernelConfig(kv_chunk=2 * page)      # npp=2 → 2 windows
-    out, res_out, kp2, vp2 = jax.jit(
-        lambda *a: llama_decoder_layer_paged(
-            *a, layer_id=0, rms_w=rms_w[None], eps=1e-5, cos_t=cos_t,
-            sin_t=sin_t, kcfg=kcfg))(x, res, wqkv_g, wo_g, table, seq_lens,
-                                     positions, k_pool, v_pool)
-
-    for b in range(B):
-        s = lens[b]
-        kc = jnp.asarray(np.stack(
-            [np.asarray(k_pool[0, int(table[b, t // page]), :, t % page])
-             .reshape(HIDDEN) for t in range(s)]))
-        vc = jnp.asarray(np.stack(
-            [np.asarray(v_pool[0, int(table[b, t // page]), :, t % page])
-             .reshape(HIDDEN) for t in range(s)]))
-        want = llama_decoder_layer_sglang_ref(
-            x[b:b + 1], res[b:b + 1], w_qkv, w_o, kc, vc, rms_w, 1e-5,
-            jnp.asarray(cos_h[s], jnp.float32),
-            jnp.asarray(sin_h[s], jnp.float32),
-            n_heads=HEADS, head_dim=HEAD_DIM)
-        assert _mx(out[b:b + 1], want[0]) < 1e-1, f"req {b} output"
-        pg, off = int(table[b, s // page]), s % page
-        assert _mx(kp2[0, pg, :, off].reshape(1, HIDDEN), want[2]) < 5e-2
-
-
-def test_paged_attention_multi_window():
-    """Lean paged attention with pages_per_step=2 over 4 pages: the
-    ping-pong buffers alternate and window prefetch overlaps compute."""
-    from clusterfusion_tpu.ops.paged_decoder_layer import paged_attention
-
-    rng = np.random.RandomState(9)
-    B, kv, g, hd, page, P, L = 2, 4, 2, 128, 8, 4, 2
-    num_pages = B * P + 1
+    n_pages = B * width + 1
+    kp, vp = _pools(rng, L, n_pages, kv, page, hd)
+    table = _table(rng, B, width, n_pages)
     q = jnp.asarray(rng.randn(B, kv, g, hd), jnp.bfloat16)
     k_new = jnp.asarray(rng.randn(B, kv, hd), jnp.bfloat16)
     v_new = jnp.asarray(rng.randn(B, kv, hd), jnp.bfloat16)
-    kp = jnp.asarray(rng.randn(L, num_pages, kv, page, hd), jnp.bfloat16)
-    vp = jnp.asarray(rng.randn(L, num_pages, kv, page, hd), jnp.bfloat16)
-    table = jnp.asarray(rng.permutation(num_pages - 1)[: B * P]
-                        .reshape(B, P).astype(np.int32) + 1) % num_pages
-    lens = jnp.asarray([3 * page + 2, 2 * page], jnp.int32)
-    layer = 0
+    seq_lens = jnp.asarray(lens, jnp.int32)
+    o, kp2, vp2 = jax.jit(paged_attention)(q, k_new, v_new, kp, vp, table,
+                                           seq_lens, 0)
+    want = paged_attention_ref(q, kp2, vp2, table, seq_lens + 1, 0)
+    np.testing.assert_allclose(np.asarray(o, np.float32),
+                               np.asarray(want).reshape(B, -1), atol=3e-2)
+    for b in range(B):
+        pg, off = int(table[b, lens[b] // page]), lens[b] % page
+        np.testing.assert_array_equal(np.asarray(kp2[0, pg, :, off]),
+                                      np.asarray(k_new[b]))
+        np.testing.assert_array_equal(np.asarray(vp2[0, pg, :, off]),
+                                      np.asarray(v_new[b]))
 
-    o, kp2, vp2 = jax.jit(
-        lambda *a: paged_attention(*a, pages_per_step=2))(
-        q, k_new, v_new, kp, vp, table, lens, layer)
 
-    for b in range(2):
-        s = int(lens[b])
-        rows_k = [np.asarray(kp[layer, int(table[b, t // page]), :, t % page],
-                             np.float32) for t in range(s)]
-        rows_v = [np.asarray(vp[layer, int(table[b, t // page]), :, t % page],
-                             np.float32) for t in range(s)]
-        rows_k.append(np.asarray(k_new[b], np.float32))
-        rows_v.append(np.asarray(v_new[b], np.float32))
-        K, V = np.stack(rows_k), np.stack(rows_v)
-        qb = np.asarray(q[b], np.float32)
-        scores = np.einsum("kgd,skd->kgs", qb, K) / np.sqrt(hd)
-        p = np.exp(scores - scores.max(-1, keepdims=True))
-        p /= p.sum(-1, keepdims=True)
-        want = np.einsum("kgs,skd->kgd", p, V).reshape(kv * g * hd)
-        np.testing.assert_allclose(np.asarray(o[b], np.float32), want,
-                                   atol=0.03)
+def test_block_table_paged_multi_window():
+    """Kernel (interpret mode) over several loop steps and KV splits: the
+    per-split online softmax and the log-sum-exp merge pass against the
+    oracle, with ragged lengths ending mid-page."""
+    rng = np.random.RandomState(11)
+    B, kv, g, hd, page, width, L = 3, 2, 2, 64, 8, 24, 1
+    n_pages = B * width + 1
+    kp, vp = _pools(rng, L, n_pages, kv, page, hd)
+    table = _table(rng, B, width, n_pages)
+    assert pa._splits(B, kv, width, pa._kernel_blocks(hd, page)[0])[1] > 1
+    q = jnp.asarray(rng.randn(B, kv, g, hd), jnp.bfloat16)
+    lens = jnp.asarray([1, 5 * page + 3, width * page], jnp.int32)
+    got = pa.paged_attention_kernel(q, kp, vp, table, lens, 0,
+                                    interpret=True)
+    want = paged_attention_ref(q, kp, vp, table, lens, 0)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=2e-2)
+
+
+def test_paged_attention_multi_window():
+    """Sliding window in the kernel (interpret mode): pages wholly below
+    the window are skipped, the window edge is masked inside a page, and a
+    window wider than the context equals full attention."""
+    rng = np.random.RandomState(9)
+    B, kv, g, hd, page, width, L = 2, 4, 2, 128, 8, 8, 2
+    n_pages = B * width + 1
+    kp, vp = _pools(rng, L, n_pages, kv, page, hd)
+    table = _table(rng, B, width, n_pages)
+    q = jnp.asarray(rng.randn(B, kv, g, hd), jnp.bfloat16)
+    lens = jnp.asarray([3 * page + 2, width * page], jnp.int32)
+    for window in (5, 2 * page + 3, 10 * width * page):
+        got = pa.paged_attention_kernel(q, kp, vp, table, lens, 1, window,
+                                        interpret=True)
+        want = paged_attention_ref(q, kp, vp, table, lens, 1, window)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   atol=2e-2)
+    full = paged_attention_ref(q, kp, vp, table, lens, 1)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(full), atol=2e-2)
 
 
 def test_paged_attention_matches_oracle():
-    """The lean batched paged-attention kernel (batched-step building
-    block) vs dense masked attention on the gathered pages, including the
-    in-kernel append of the current token."""
-    from clusterfusion_tpu.ops.paged_decoder_layer import paged_attention
-
+    """The serving engine's paged attention (append, then attend) vs dense
+    attention on the gathered pages plus the current token; other layers
+    stay untouched."""
     rng = np.random.RandomState(3)
     B, kv, g, hd, page, P, L = 2, 4, 2, 128, 8, 4, 2
     num_pages = B * P + 1
@@ -270,7 +178,7 @@ def test_paged_attention_matches_oracle():
     lens = jnp.asarray([11, 26], jnp.int32)
     layer = 1
 
-    o, kp2, vp2 = jax.jit(paged_attention, static_argnames=())(
+    o, kp2, vp2 = jax.jit(paged_attention)(
         q, k_new, v_new, kp, vp, table, lens, layer)
 
     for b in range(2):
@@ -299,3 +207,106 @@ def test_paged_attention_matches_oracle():
     # other layers untouched
     np.testing.assert_array_equal(np.asarray(kp2[0], np.float32),
                                   np.asarray(kp[0], np.float32))
+
+
+# (kv heads, query group, head_dim, window, softcap, pool dtype)
+KERNEL_CASES = {
+    "mha": (4, 1, 128, 0, 0.0, jnp.bfloat16),
+    "gqa": (2, 4, 128, 0, 0.0, jnp.bfloat16),
+    "hd64_group8": (2, 8, 64, 0, 0.0, jnp.bfloat16),
+    "hd256_softcap": (2, 2, 256, 0, 50.0, jnp.bfloat16),
+    "window": (2, 4, 128, 21, 0.0, jnp.bfloat16),
+    "int8kv": (2, 4, 128, 0, 0.0, "int8"),
+    "fp8": (2, 4, 128, 0, 0.0, jnp.float8_e4m3fn),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KERNEL_CASES))
+def test_paged_kernel_interpret_matches_oracle(case):
+    """The Triton-route kernel in interpret mode against the fp32 oracle:
+    ragged lengths (one row, mid-page, a full table), GQA and MHA groups,
+    head_dim 64/128/256, softcap, sliding window, Int8KV scales and fp8
+    converted at the load."""
+    kv, g, hd, window, softcap, dt = KERNEL_CASES[case]
+    rng = np.random.RandomState(len(case))
+    B, page, width, L = 3, 16, 6, 2
+    n_pages = B * width + 1
+    kp, vp = _pools(rng, L, n_pages, kv, page, hd, dt)
+    table = _table(rng, B, width, n_pages)
+    q = jnp.asarray(rng.randn(B, kv, g, hd), jnp.bfloat16)
+    lens = jnp.asarray([1, 2 * page + 7, width * page], jnp.int32)
+    got = pa.paged_attention_kernel(q, kp, vp, table, lens, 1, window,
+                                    softcap, interpret=True)
+    want = paged_attention_ref(q, kp, vp, table, lens, 1, window, softcap)
+    assert got.shape == (B, kv, g, hd)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=3e-2)
+
+
+def test_int8kv_append_quantizes_rows():
+    """Appending into an Int8KV pool writes the row's int8 codes and its
+    scale; reading them back reproduces the row to int8 precision."""
+    rng = np.random.RandomState(4)
+    B, kv, hd, page = 2, 2, 128, 16
+    pool = pa.init_paged_pool((1, 5, kv, page, hd), "int8")
+    rows = jnp.asarray(rng.randn(B, kv, hd), jnp.float32)
+    table = jnp.asarray([[1, 2], [3, 4]], jnp.int32)
+    lens = jnp.asarray([17, 3], jnp.int32)
+    out = pa.paged_append(pool, rows, table, lens, 0)
+    assert isinstance(out, Int8KV)
+    for b, (pg, off) in enumerate([(2, 1), (3, 3)]):
+        back = (np.asarray(out.q[0, pg, :, off], np.float32)
+                * np.asarray(out.s[0, pg, :, off])[:, None])
+        np.testing.assert_allclose(back, np.asarray(rows[b]),
+                                   atol=np.abs(rows[b]).max() / 127)
+
+
+@pytest.mark.parametrize("B,kv,width,page,hd", [
+    (1, 32, 1, 16, 128), (8, 32, 128, 16, 128), (8, 8, 384, 16, 128),
+    (3, 2, 5, 1, 64), (2, 8, 7, 16, 256)])
+def test_kernel_split_covers_table(B, kv, width, page, hd):
+    """Every page of the block table falls in exactly one KV split, the
+    loop step is whole pages, and the grid never drops below one wave of
+    programs when the table has pages to spare."""
+    ppb, rows = pa._kernel_blocks(hd, page)
+    assert rows == ppb * page and ppb >= 1
+    pps, n_splits = pa._splits(B, kv, width, ppb)
+    assert pps % ppb == 0
+    assert (n_splits - 1) * pps < width <= n_splits * pps
+    n_blocks = -(-width // ppb)
+    assert n_splits == n_blocks or B * kv * n_splits >= pa._TARGET_PROGRAMS
+
+
+def test_paged_attention_uses_xla_path_off_gpu():
+    """The choice of implementation follows the platform: off a CUDA
+    device the serving engine's attention lowers to plain XLA, with no
+    Triton custom call in the program; on one, to the kernel."""
+    rng = np.random.RandomState(0)
+    kp, vp = _pools(rng, 1, 5, 2, 16, 64)
+    args = (jnp.ones((2, 2, 1, 64), jnp.bfloat16),
+            jnp.ones((2, 2, 64), jnp.bfloat16),
+            jnp.ones((2, 2, 64), jnp.bfloat16), kp, vp,
+            jnp.asarray([[1, 2], [3, 4]], jnp.int32),
+            jnp.asarray([3, 20], jnp.int32), 0)
+    hlo = jax.jit(paged_attention).lower(*args).compile().as_text()
+    on_gpu = jax.devices()[0].platform == "gpu"
+    assert ("triton" in hlo.lower()) == on_gpu
+
+
+@pytest.mark.gpu
+def test_paged_kernel_compiled_matches_xla(gpu):
+    """The kernel compiled for the card (no interpret mode) against the
+    XLA path, bf16 and Int8KV pools, windowed."""
+    rng = np.random.RandomState(1)
+    B, kv, g, hd, page, width, L = 4, 8, 4, 128, 16, 32, 2
+    n_pages = B * width + 1
+    for dt in (jnp.bfloat16, "int8"):
+        kp, vp = _pools(rng, L, n_pages, kv, page, hd, dt)
+        table = _table(rng, B, width, n_pages)
+        q = jnp.asarray(rng.randn(B, kv, g, hd), jnp.bfloat16)
+        lens = jnp.asarray([1, 100, 300, width * page], jnp.int32)
+        got = jax.jit(pa.paged_attention_kernel)(q, kp, vp, table, lens, 1,
+                                                 200)
+        want = jax.jit(pa.paged_attention_xla)(q, kp, vp, table, lens, 1,
+                                               200)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   atol=2e-2)

@@ -1,14 +1,14 @@
 """Perplexity-parity regression (north-star: Δppl ≤ 0.1 at every
 quantized operating point vs bf16).  Small version of bench_ppl.py — a
 byte-level model overfit on the repo's docs, scored teacher-forced through
-the fused verify megakernel."""
+the n-row verify step."""
 
 import jax.numpy as jnp
 import pytest
 
 from bench_ppl import corpus_tokens, score_ppl, train_model
-from clusterfusion_tpu.config import KernelConfig, LlamaConfig
-from clusterfusion_tpu.ops.quant import quantize_llama_params
+from clusterfusion.config import LlamaConfig
+from clusterfusion.ops.quant import quantize_llama_params
 
 TOKENS = 512
 WINDOW = 256
@@ -24,20 +24,16 @@ def trained():
     return cfg, toks, params, base
 
 
-@pytest.mark.parametrize("point", ["int8", "int4_w4a8", "int8+int8kv"])
+@pytest.mark.parametrize("point", ["int8", "int4", "int8+int8kv"])
 def test_quantized_ppl_within_north_star_delta(trained, point):
     cfg, toks, params, base = trained
-    kcfg, kvd = KernelConfig(), jnp.bfloat16
+    kvd = jnp.bfloat16
     if point == "int8":
         p = quantize_llama_params(params, "int8")
-    elif point == "int4_w4a8":
-        # gs=128: lane-aligned so the W4A8 int8-MXU fast path really runs
-        # (gs<128 silently falls back to the exact bf16 dequant)
+    elif point == "int4":
         p = quantize_llama_params(params, "int4", 128)
-        kcfg = KernelConfig(int4_w4a8=True)
     else:
         p = quantize_llama_params(params, "int8")
         kvd = "int8"
-    ppl = score_ppl(p, cfg, toks, kcfg=kcfg, kv_dtype=kvd,
-                    window=WINDOW, block=16)
+    ppl = score_ppl(p, cfg, toks, kv_dtype=kvd, window=WINDOW, block=16)
     assert abs(ppl - base) <= 0.1, (point, ppl, base)

@@ -1,9 +1,8 @@
 """Qwen2-family support: QKV projection bias through every decode path.
 
 Qwen2/2.5 is llama-shaped (neox rope, GQA, SwiGLU, RMSNorm) plus a bias
-on the Q/K/V projections only.  The bias enters the megakernels as one
-extra [L, G, hg·(g+2)·hd] operand added pre-rope in the QKV phase; the
-eager paths add it in ``_qkv_eager``.
+on the Q/K/V projections only: one extra [L, kv, (g+2)·hd] parameter
+added pre-rope (``_qkv_eager`` and the serving step's batched QKV).
 """
 
 import jax
@@ -11,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from clusterfusion_tpu.config import LlamaConfig
-from clusterfusion_tpu.models import llama as model
-from clusterfusion_tpu.models import speculative as spec
-from clusterfusion_tpu.ops.quant import quantize_llama_params
+from clusterfusion.config import LlamaConfig
+from clusterfusion.models import llama as model
+from clusterfusion.models import speculative as spec
+from clusterfusion.ops.quant import quantize_llama_params
 
 CFG = LlamaConfig.tiny(qkv_bias=True, n_kv_heads=2)
 
@@ -33,34 +32,45 @@ def _setup(cfg, seed=0, quant=None):
     return params, kc, vc, 6
 
 
+def _oracle(params, toks, cfg=CFG):
+    prompt = (jnp.arange(6, dtype=jnp.int32) * 7 + 1) % cfg.vocab_size
+    return model.reference_logits(
+        params, jnp.concatenate([prompt, jnp.asarray(toks, jnp.int32)]), cfg)
+
+
 @pytest.mark.parametrize("quant", [None, "int8", "int4"])
 def test_bias_decode_fused_matches_eager(quant):
     params, kc, vc, pos0 = _setup(CFG, quant=quant)
     tok = jnp.asarray(7, jnp.int32)
     pos = jnp.asarray(pos0, jnp.int32)
-    lf, kf, _ = model.decode_step(params, kc, vc, tok, pos, CFG, fused=True)
-    le, ke, _ = model.decode_step(params, kc, vc, tok, pos, CFG, fused=False)
+    lf, kf, _ = model.decode_step(params, kc, vc, tok, pos, CFG)
+    le = _oracle(params, [7])[-1]
     scale = max(float(jnp.max(jnp.abs(le))), 1.0)
-    assert float(jnp.max(jnp.abs(lf - le))) < 0.1 * scale, quant
+    assert float(jnp.max(jnp.abs(lf - le))) < 0.05 * scale, quant
+    # the appended row is what a prefill of the same tokens writes
+    prompt = (jnp.arange(6, dtype=jnp.int32) * 7 + 1) % CFG.vocab_size
+    kp, vp = model.init_cache(CFG)
+    _, kp, _ = model.prefill(params, kp, vp,
+                             jnp.concatenate([prompt, tok[None]]), CFG)
     np.testing.assert_allclose(np.asarray(kf[0, :, pos0], jnp.float32),
-                               np.asarray(ke[0, :, pos0], jnp.float32),
+                               np.asarray(kp[0, :, pos0], jnp.float32),
                                atol=0.05)
 
 
 def test_bias_actually_changes_logits():
     """Guard against a silently-dropped bias operand: zeroing the bias must
-    change the fused output."""
+    change the decode output."""
     params, kc, vc, pos0 = _setup(CFG)
     tok = jnp.asarray(7, jnp.int32)
     pos = jnp.asarray(pos0, jnp.int32)
-    lb, _, _ = model.decode_step(params, kc, vc, tok, pos, CFG, fused=True)
+    lb, _, _ = model.decode_step(params, kc, vc, tok, pos, CFG)
     p0 = dict(params)
     p0["layers"] = dict(params["layers"])
     p0["layers"]["bqkv_f"] = jnp.zeros_like(params["layers"]["bqkv_f"])
     kc0, vc0 = model.init_cache(CFG)
     prompt = (jnp.arange(6, dtype=jnp.int32) * 7 + 1) % CFG.vocab_size
     _, kc0, vc0 = model.prefill(p0, kc0, vc0, prompt, CFG)
-    l0, _, _ = model.decode_step(p0, kc0, vc0, tok, pos, CFG, fused=True)
+    l0, _, _ = model.decode_step(p0, kc0, vc0, tok, pos, CFG)
     assert float(jnp.max(jnp.abs(lb - l0))) > 1e-3
 
 
@@ -68,8 +78,8 @@ def test_bias_verify_fused_matches_eager():
     params, kc, vc, pos0 = _setup(CFG, seed=3)
     toks = (jnp.arange(4, dtype=jnp.int32) * 3 + 2) % CFG.vocab_size
     pos = jnp.asarray(pos0, jnp.int32)
-    lf, _, _ = spec.verify_step(params, kc, vc, toks, pos, CFG, fused=True)
-    le, _, _ = spec.verify_step(params, kc, vc, toks, pos, CFG, fused=False)
+    lf, _, _ = spec.verify_step(params, kc, vc, toks, pos, CFG)
+    le = _oracle(params, toks)[pos0:]
     scale = max(float(jnp.max(jnp.abs(le))), 1.0)
     assert float(jnp.max(jnp.abs(lf - le))) < 0.08 * scale
 
@@ -80,12 +90,10 @@ def test_bias_prefill_flash_matches_eager():
     params["layers"]["bqkv_f"] = params["layers"]["bqkv_f"] * 4.0
     kc, vc = model.init_cache(cfg)
     toks = (jnp.arange(40, dtype=jnp.int32) * 13 + 1) % cfg.vocab_size
-    lf, kf, _ = model.prefill(params, kc, vc, toks, cfg, flash=True)
-    le, ke, _ = model.prefill(params, kc, vc, toks, cfg, flash=False)
+    lf, kf, _ = model.prefill(params, kc, vc, toks, cfg)
+    le = model.reference_logits(params, toks, cfg)
     scale = max(float(jnp.max(jnp.abs(le))), 1.0)
-    assert float(jnp.max(jnp.abs(lf - le))) < 0.08 * scale
-    np.testing.assert_allclose(np.asarray(kf, np.float32),
-                               np.asarray(ke, np.float32), atol=0.05)
+    assert float(jnp.max(jnp.abs(lf - le))) < 0.05 * scale
 
 
 def test_fuse_qkv_bias_layout():
@@ -122,10 +130,9 @@ def test_fuse_qkv_bias_layout():
 
 
 def test_bias_serving_matches_single_seq():
-    """Continuous-batching serving with QKV bias (both the batched-matmul
-    step and the paged megakernel carry the bias operand) must equal the
-    fused single-sequence greedy decode."""
-    from clusterfusion_tpu.runtime.serving import ServingEngine
+    """Continuous-batching serving with QKV bias must equal the
+    single-sequence greedy decode."""
+    from clusterfusion.runtime.serving import ServingEngine
     cfg = LlamaConfig.tiny(max_seq_len=64, qkv_bias=True, n_kv_heads=2)
     params = model.init_params(cfg, jax.random.PRNGKey(12))
     params["layers"]["bqkv_f"] = params["layers"]["bqkv_f"] * 4.0
@@ -139,7 +146,7 @@ def test_bias_serving_matches_single_seq():
         for _ in range(n_gen - 1):
             lg, kc, vc = model.decode_step(
                 params, kc, vc, jnp.asarray(toks[-1], jnp.int32),
-                jnp.asarray(pos, jnp.int32), cfg, fused=True)
+                jnp.asarray(pos, jnp.int32), cfg)
             toks.append(int(jnp.argmax(lg)))
             pos += 1
         return toks
@@ -157,8 +164,8 @@ def test_qwen2_preset_geometry():
     cfg = LlamaConfig.qwen2_7b()
     assert cfg.qkv_bias and cfg.rope_style == "neox"
     assert cfg.qkv_dim == (28 + 2 * 4) * 128
-    from clusterfusion_tpu.ops.stack_kernel import _vocab_block
-    assert _vocab_block(cfg.vocab_size) > 0   # LM head fuses in-kernel
+    assert cfg.kv_heads == 4 and cfg.vocab_size == 152064
+    assert cfg.rope_theta == 1000000.0
 
 
 def test_qwen2_hf_loader_use_sliding_window_gate(tmp_path):
@@ -170,7 +177,7 @@ def test_qwen2_hf_loader_use_sliding_window_gate(tmp_path):
     use_sliding_window key at all."""
     import json
     from safetensors.numpy import save_file
-    from clusterfusion_tpu.models.checkpoint import load_hf_checkpoint
+    from clusterfusion.models.checkpoint import load_hf_checkpoint
 
     h, heads, kvh, hd, f, L, V = 256, 2, 1, 128, 512, 1, 512
     rng = np.random.RandomState(0)
@@ -226,7 +233,7 @@ def test_hf_window_max_window_layers():
     -> fully on) and rejects a genuinely mixed stack, which has no
     matching kernel window_pattern."""
     import pytest
-    from clusterfusion_tpu.models.checkpoint import _hf_window
+    from clusterfusion.models.checkpoint import _hf_window
 
     base = {"sliding_window": 64, "use_sliding_window": True,
             "num_hidden_layers": 8}

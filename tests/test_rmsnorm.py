@@ -8,8 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from clusterfusion_tpu.ops import rmsnorm, fused_add_rmsnorm
-from clusterfusion_tpu.ops.reference import rmsnorm_ref, fused_add_rmsnorm_ref
+from clusterfusion.ops import rmsnorm, fused_add_rmsnorm
+from clusterfusion.ops.reference import rmsnorm_ref, fused_add_rmsnorm_ref
 
 
 def _mae(a, b):

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from clusterfusion_tpu.config import LlamaConfig
-from clusterfusion_tpu.models import llama as model
-from clusterfusion_tpu.runtime.native import PagedKVScheduler
+from clusterfusion.config import LlamaConfig
+from clusterfusion.models import llama as model
+from clusterfusion.runtime.native import PagedKVScheduler
 
 
 # --------------------------------------------------------------------------
@@ -103,9 +103,9 @@ def test_discard_batch_keeps_lengths():
 CFG = LlamaConfig.tiny(max_seq_len=64)
 
 
-def _reference_greedy(params, prompt, n_gen):
-    """Single-sequence fused decode (the already-tested path) as oracle."""
-    kc, vc = model.init_cache(CFG)
+def _reference_greedy(params, prompt, n_gen, kv_dtype=jnp.bfloat16):
+    """Single-sequence decode (the already-tested path) as oracle."""
+    kc, vc = model.init_cache(CFG, dtype=kv_dtype)
     logits, kc, vc = model.prefill(params, kc, vc,
                                    jnp.asarray(prompt, jnp.int32), CFG)
     toks = [int(jnp.argmax(logits[len(prompt) - 1]))]
@@ -113,8 +113,7 @@ def _reference_greedy(params, prompt, n_gen):
     for _ in range(n_gen - 1):
         lg, kc, vc = model.decode_step(params, kc, vc,
                                        jnp.asarray(toks[-1], jnp.int32),
-                                       jnp.asarray(pos, jnp.int32), CFG,
-                                       fused=True)
+                                       jnp.asarray(pos, jnp.int32), CFG)
         toks.append(int(jnp.argmax(lg)))
         pos += 1
     return toks
@@ -122,19 +121,22 @@ def _reference_greedy(params, prompt, n_gen):
 
 def test_serving_engine_matches_single_seq():
     """3 requests with different prompts/lengths decoded together must equal
-    per-request single-sequence greedy decode."""
-    params = model.init_params(CFG, jax.random.PRNGKey(0))
-    from clusterfusion_tpu.runtime.serving import ServingEngine
+    per-request single-sequence greedy decode.  Weights and KV are fp32, so
+    the two paths differ only in summation order and a near-tie of the
+    random weights' logits cannot flip a greedy choice."""
+    params = model.upcast(model.init_params(CFG, jax.random.PRNGKey(0)))
+    from clusterfusion.runtime.serving import ServingEngine
 
     prompts = {0: [1, 2, 3], 1: [4, 5, 6, 7, 8, 9, 10], 2: [11, 12]}
     n_gen = 5
-    eng = ServingEngine(params, CFG, page_size=8, num_pages=64, max_batch=4)
+    eng = ServingEngine(params, CFG, page_size=8, num_pages=64, max_batch=4,
+                        kv_dtype=jnp.float32)
     for rid, p in prompts.items():
         eng.submit(rid, p, max_gen_len=n_gen, temperature=0.0)
     out = eng.run()
     assert set(out) == set(prompts)
     for rid, p in prompts.items():
-        want = _reference_greedy(params, p, n_gen)
+        want = _reference_greedy(params, p, n_gen, jnp.float32)
         assert out[rid] == want, (rid, out[rid], want)
 
 
@@ -142,7 +144,7 @@ def test_serving_engine_staggered_submission():
     """A request submitted mid-flight joins the running batch and still
     decodes correctly (true continuous batching)."""
     params = model.init_params(CFG, jax.random.PRNGKey(1))
-    from clusterfusion_tpu.runtime.serving import ServingEngine
+    from clusterfusion.runtime.serving import ServingEngine
 
     eng = ServingEngine(params, CFG, page_size=8, num_pages=64, max_batch=4)
     eng.submit(0, [3, 1, 4], max_gen_len=6, temperature=0.0)
@@ -158,7 +160,7 @@ def test_serving_engine_queue_overflow():
     """More requests than pages: later requests wait, then run to the same
     greedy result once pages free up."""
     params = model.init_params(CFG, jax.random.PRNGKey(2))
-    from clusterfusion_tpu.runtime.serving import ServingEngine
+    from clusterfusion.runtime.serving import ServingEngine
 
     # pool sized so only ~2 requests fit at once
     eng = ServingEngine(params, CFG, page_size=8, num_pages=7, max_batch=4,
@@ -172,14 +174,14 @@ def test_serving_engine_queue_overflow():
 
 
 def test_serving_engine_int8_quantized():
-    """Continuous-batched INT8 decode (fused dequant in the paged kernel +
-    scale-commuted eager FFN) is batching-invariant: decoding requests
-    together bit-matches decoding each alone through the same engine.
-    (A cross-kernel token-level comparison would be brittle: quantized
-    random-weight logits have near-ties that argmax resolves differently
-    between the batched paged kernel and the single-seq stack kernel.)"""
-    from clusterfusion_tpu.ops.quant import quantize_llama_params
-    from clusterfusion_tpu.runtime.serving import ServingEngine
+    """Continuous-batched INT8 decode (scale-after-dot projections) is
+    batching-invariant: decoding requests together bit-matches decoding
+    each alone through the same engine.  (A cross-path token-level
+    comparison would be brittle: quantized random-weight logits have
+    near-ties that argmax resolves differently between the batched step
+    and the single-sequence decode.)"""
+    from clusterfusion.ops.quant import quantize_llama_params
+    from clusterfusion.runtime.serving import ServingEngine
 
     params = quantize_llama_params(
         model.init_params(CFG, jax.random.PRNGKey(3)), "int8", 128)
@@ -208,7 +210,7 @@ def test_serving_engine_recompute_preemption():
     prompt + generated[:-1] and no duplicate token sampled.  Regression for
     the round-1 bug where re-admission re-prefilled only the prompt (stale
     zero KV rows) and re-sampled an extra token (ADVICE.md, high)."""
-    from clusterfusion_tpu.runtime.serving import ServingEngine
+    from clusterfusion.runtime.serving import ServingEngine
 
     params = model.init_params(CFG, jax.random.PRNGKey(7))
     # 3 usable pages of 8 tokens: two 3-token prompts fit, but crossing the
@@ -240,7 +242,7 @@ def test_serving_engine_recompute_preemption():
 
 
 def test_serving_engine_cancel_and_stats():
-    from clusterfusion_tpu.runtime.serving import ServingEngine
+    from clusterfusion.runtime.serving import ServingEngine
 
     params = model.init_params(CFG, jax.random.PRNGKey(4))
     eng = ServingEngine(params, CFG, page_size=8, num_pages=32, max_batch=4)
@@ -259,7 +261,7 @@ def test_serving_engine_cancel_and_stats():
 
 def test_serving_engine_fp8_pool():
     """Serving over an fp8 KV pool stays close to the bf16-pool engine."""
-    from clusterfusion_tpu.runtime.serving import ServingEngine
+    from clusterfusion.runtime.serving import ServingEngine
 
     params = model.init_params(CFG, jax.random.PRNGKey(5))
     outs = {}
@@ -276,18 +278,16 @@ def test_serving_engine_fp8_pool():
 
 def test_serving_engine_chunked_prefill():
     """Long prompt prefilled in fixed-size chunks must decode to the same
-    greedy tokens as the single-sequence path (chunked flash prefill is a
-    capability the reference lacks — its prefill is always one eager shot)."""
-    from clusterfusion_tpu.runtime.serving import ServingEngine
+    greedy tokens as the single-sequence path (chunked prefill is a
+    capability the reference lacks — its prefill is always one shot)."""
+    from clusterfusion.runtime.serving import ServingEngine
 
     params = model.init_params(CFG, jax.random.PRNGKey(5))
     long_prompt = [int(x) for x in (np.arange(41) * 11 + 3) % CFG.vocab_size]
     short_prompt = [7, 8, 9]
-    # step_impl="fused" and 3 tokens: the oracle is the single-seq fused
-    # path; with these weights the 4th token is a sub-ulp argmax tie that
-    # resolves differently between compiled-TPU and interpret numerics
+    # 3 tokens: with these weights the 4th token is a sub-ulp argmax tie
     eng = ServingEngine(params, CFG, page_size=8, num_pages=64, max_batch=4,
-                        prefill_chunk=16, step_impl="fused")
+                        prefill_chunk=16)
     eng.submit(0, long_prompt, max_gen_len=3, temperature=0.0)
     eng.submit(1, short_prompt, max_gen_len=3, temperature=0.0)
     out = eng.run()
@@ -296,11 +296,11 @@ def test_serving_engine_chunked_prefill():
 
 
 def test_serving_step_impls_agree():
-    """The batched-matmul step and the fused megakernel step must produce
-    the same tokens and (to bf16 rounding) the same pool contents."""
+    """The serving step over paged pools agrees with the single-sequence
+    decode step over each row's pages gathered into a contiguous cache:
+    same greedy tokens, same logprobs, same appended K/V rows."""
     import functools
-    from clusterfusion_tpu.config import KernelConfig
-    from clusterfusion_tpu.runtime import serving as S
+    from clusterfusion.runtime import serving as S
 
     params = model.init_params(CFG, jax.random.PRNGKey(6))
     B, page, P, num_pages = 3, 8, 8, 32
@@ -314,16 +314,26 @@ def test_serving_step_impls_agree():
     key = jax.random.PRNGKey(0)
     temps = jnp.zeros((B,))
     tops = jnp.full((B,), 0.9)
-    outs = {}
-    for name, impl in (("fused", S._paged_decode_step),
-                       ("batched", S._paged_decode_step_batched)):
-        n, _, kp2, vp2 = jax.jit(functools.partial(
-            impl, cfg=CFG, kcfg=KernelConfig()))(
-            params, kp, vp, toks, lens, table, lens, key, temps, tops)
-        outs[name] = (np.asarray(n), np.asarray(kp2, np.float32))
-    np.testing.assert_array_equal(outs["fused"][0], outs["batched"][0])
-    np.testing.assert_allclose(outs["fused"][1], outs["batched"][1],
-                               atol=0.06)
+    nxt, lp, kp2, vp2 = jax.jit(functools.partial(
+        S._paged_decode_step, cfg=CFG))(
+        params, kp, vp, toks, lens, table, lens, key, temps, tops)
+
+    def contiguous(pool, b):       # [L, kv, P*page, hd]
+        x = pool[:, table[b]]      # [L, P, kv, page, hd]
+        return x.transpose(0, 2, 1, 3, 4).reshape(
+            CFG.n_layers, CFG.kv_heads, P * page, CFG.head_dim_)
+
+    for b in range(B):
+        lg, kc, vc = model.decode_step(params, contiguous(kp, b),
+                                       contiguous(vp, b), toks[b], lens[b],
+                                       CFG)
+        assert int(nxt[b]) == int(jnp.argmax(lg)), b
+        want_lp = float(jax.nn.log_softmax(lg)[int(nxt[b])])
+        assert abs(float(lp[b]) - want_lp) < 0.05, b
+        n = int(lens[b])
+        np.testing.assert_allclose(
+            np.asarray(contiguous(kp2, b)[:, :, n], np.float32),
+            np.asarray(kc[:, :, n], np.float32), atol=0.06)
 
 
 def test_set_window_token_api():

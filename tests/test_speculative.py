@@ -9,9 +9,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from clusterfusion_tpu.config import LlamaConfig
-from clusterfusion_tpu.models import llama as model
-from clusterfusion_tpu.models import speculative as spec
+from clusterfusion.config import LlamaConfig
+from clusterfusion.models import llama as model
+from clusterfusion.models import speculative as spec
 
 CFG = LlamaConfig.tiny()
 
@@ -36,7 +36,7 @@ def _greedy_eager(params, prompt, n):
 
 
 def test_verify_step_matches_sequential():
-    """n-token verify == n sequential eager decode steps (logits + cache)."""
+    """n-token verify == n sequential decode steps (logits + cache)."""
     params = model.init_params(CFG, jax.random.PRNGKey(0))
     prompt = jnp.asarray([3, 1, 4, 1, 5], jnp.int32)
     _, kc0, vc0 = _prefilled(params, prompt)
@@ -49,7 +49,7 @@ def test_verify_step_matches_sequential():
     for i, t in enumerate([9, 2, 6]):
         le, kce, vce = model.decode_step(
             params, kce, vce, jnp.asarray(t, jnp.int32),
-            jnp.asarray(pos0 + i, jnp.int32), CFG, fused=False)
+            jnp.asarray(pos0 + i, jnp.int32), CFG)
         err = float(jnp.max(jnp.abs(lv[i] - le)))
         assert err < 0.05, (i, err)
     # new rows: batched vs sequential bf16 rounding differs by <=1 ulp
@@ -69,7 +69,7 @@ def test_full_acceptance_with_self_draft():
     targets, counts, *_ = spec.spec_decode_loop(
         params, kc, vc, params, kcd, vcd, tok,
         jnp.asarray(len(prompt), jnp.int32), CFG, CFG,
-        n_draft=n_draft, n_rounds=n_rounds, draft_fused=False)
+        n_draft=n_draft, n_rounds=n_rounds)
     counts = np.asarray(counts)
     # the self-draft is the target's own greedy continuation -> either full
     # acceptance or (rarely) a tie-flip; it must never fall to zero accepts
@@ -91,7 +91,7 @@ def test_greedy_equivalence_with_bad_draft():
     targets, counts, *_ = spec.spec_decode_loop(
         params, kc, vc, draft_params, kcd, vcd, tok,
         jnp.asarray(len(prompt), jnp.int32), CFG, CFG,
-        n_draft=3, n_rounds=4, draft_fused=False)
+        n_draft=3, n_rounds=4)
     got = spec.flatten_rounds(np.asarray(targets), np.asarray(counts))
     want = _greedy_eager(params, prompt, len(got))
     assert got == want, (got, want)
@@ -100,7 +100,7 @@ def test_greedy_equivalence_with_bad_draft():
 
 
 def test_spec_decode_fused_draft_smoke():
-    """Draft through the fused megakernel path end-to-end."""
+    """Two unrelated models as target and draft, end to end."""
     params = model.init_params(CFG, jax.random.PRNGKey(3))
     draft_params = model.init_params(CFG, jax.random.PRNGKey(4))
     prompt = jnp.asarray([1, 2, 3], jnp.int32)
@@ -109,17 +109,17 @@ def test_spec_decode_fused_draft_smoke():
     targets, counts, *_ = spec.spec_decode_loop(
         params, kc, vc, draft_params, kcd, vcd, tok,
         jnp.asarray(len(prompt), jnp.int32), CFG, CFG,
-        n_draft=2, n_rounds=2, draft_fused=True)
+        n_draft=2, n_rounds=2)
     got = spec.flatten_rounds(np.asarray(targets), np.asarray(counts))
     assert len(got) >= 2 and all(0 <= t < CFG.vocab_size for t in got)
 
 
 def test_engine_spec_generate_matches_greedy():
     """Llama.spec_generate == greedy stream_generate (temperature 0)."""
-    from clusterfusion_tpu.models.generation import Llama
+    from clusterfusion.models.generation import Llama
 
-    target = Llama.synthetic(CFG, seed=6, fused=False)
-    draft = Llama.synthetic(CFG, seed=7, fused=False)
+    target = Llama.synthetic(CFG, seed=6)
+    draft = Llama.synthetic(CFG, seed=7)
     prompt = [2, 7, 18, 28]
     got = target.spec_generate(prompt, max_gen_len=8, draft=draft, n_draft=3,
                                rounds_per_dispatch=2)

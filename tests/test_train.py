@@ -1,5 +1,5 @@
 """Training step: loss decreases on a tiny overfit task, the trained model
-decodes through the fused megakernel path, and the step is dp-shardable.
+decodes through the decode path, and the step is dp-shardable.
 (The reference is inference-only — SURVEY.md §2; training exists because
 the functional model serves both directions.)
 """
@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from clusterfusion_tpu.config import LlamaConfig
-from clusterfusion_tpu.models import llama as model
-from clusterfusion_tpu.train import lm_loss, make_optimizer, make_train_step
+from clusterfusion.config import LlamaConfig
+from clusterfusion.models import llama as model
+from clusterfusion.train import lm_loss, make_optimizer, make_train_step
 
 CFG = LlamaConfig.tiny(n_layers=2, max_seq_len=32)
 
@@ -34,12 +34,11 @@ def test_loss_decreases_and_fused_decode_consumes_trained_params():
     assert losses[-1] < l0 * 0.7, (l0, losses)
     assert np.isfinite(losses).all()
 
-    # the trained params drive the fused decode path directly
+    # the trained params drive the decode path directly
     kc, vc = model.init_cache(CFG)
     logits, kc, vc = model.prefill(params, kc, vc, seq[:8], CFG)
     lg, kc, vc = model.decode_step(params, kc, vc, seq[8],
-                                   jnp.asarray(8, jnp.int32), CFG,
-                                   fused=True)
+                                   jnp.asarray(8, jnp.int32), CFG)
     assert np.isfinite(np.asarray(lg)).all()
 
 

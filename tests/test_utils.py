@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from clusterfusion_tpu.config import LlamaConfig
-from clusterfusion_tpu.models import llama as model
-from clusterfusion_tpu.ops.quant import QuantizedTensor, quantize_llama_params
-from clusterfusion_tpu.utils import (
+from clusterfusion.config import LlamaConfig
+from clusterfusion.models import llama as model
+from clusterfusion.ops.quant import QuantizedTensor, quantize_llama_params
+from clusterfusion.utils import (
     LatencyStats,
     load_native_checkpoint,
     save_checkpoint,
@@ -49,8 +49,8 @@ def test_checkpoint_roundtrip_quantized(tmp_path):
     kc, vc = model.init_cache(CFG)
     tok = jnp.asarray(3, jnp.int32)
     pos = jnp.asarray(0, jnp.int32)
-    a, _, _ = model.decode_step(params, kc, vc, tok, pos, CFG, fused=True)
-    b, _, _ = model.decode_step(loaded, kc, vc, tok, pos, CFG, fused=True)
+    a, _, _ = model.decode_step(params, kc, vc, tok, pos, CFG)
+    b, _, _ = model.decode_step(loaded, kc, vc, tok, pos, CFG)
     assert np.array_equal(np.asarray(a), np.asarray(b))
 
 
@@ -61,3 +61,38 @@ def test_latency_stats():
             pass
     s = st.summary()
     assert s["count"] == 5 and s["p99_ms"] >= 0
+
+
+def test_compile_cache_dir_follows_env(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR, when set, is the cache directory."""
+    from clusterfusion.utils.compile_cache import enable_compile_cache
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    try:
+        assert enable_compile_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_compile_cache_default_in_checkout(monkeypatch):
+    """Unset, the cache is <checkout>/.jax_cache — a fixed path, never
+    derived from a pid, a temporary name or the time."""
+    import os
+    from clusterfusion.utils.compile_cache import enable_compile_cache
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        path = enable_compile_cache()
+        assert path == os.path.join(repo, ".jax_cache")
+        assert enable_compile_cache() == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_card_name_without_nvidia_smi(monkeypatch):
+    """No nvidia-smi on the PATH: a message, not an exception."""
+    from clusterfusion.utils.profiling import card_name_and_power
+    monkeypatch.setenv("PATH", "")
+    assert "nvidia-smi" in card_name_and_power()

@@ -1,13 +1,10 @@
 """Sliding-window attention (Mistral semantics) across every path that
-takes a ``window``: the single-layer megakernel, the whole-stack decode
-megakernel, the flash prefill kernel, and the n-row verify megakernel.
+takes a ``window``: the single-layer op, the decode step, prefill, paged
+serving and the n-row verify step.
 
-The round-3 advisor found the stack kernel silently ran window=0 (the
-kernel partial omitted the parameter) while the KV index map already
-aliased pre-window chunks — ~80% output error.  These tests pin the
-wiring: every windowed path vs a windowed eager oracle, including a
-window spanning a partial kv_chunk and the ``window >= seq+1`` ==
-full-attention identity.
+These tests pin the wiring: every windowed path vs a windowed fp32
+oracle, including windows that start mid-page and the ``window >= seq+1``
+== full-attention identity.
 """
 
 import dataclasses
@@ -18,11 +15,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from clusterfusion_tpu.config import KernelConfig, LlamaConfig
-from clusterfusion_tpu.models import llama as model
-from clusterfusion_tpu.models import speculative as spec
-from clusterfusion_tpu.ops import llama_decoder_layer_sglang
-from clusterfusion_tpu.ops.reference import llama_decoder_layer_sglang_ref
+from clusterfusion.config import LlamaConfig
+from clusterfusion.models import llama as model
+from clusterfusion.models import speculative as spec
+from clusterfusion.ops import llama_decoder_layer_sglang
+from clusterfusion.ops.reference import llama_decoder_layer_sglang_ref
 
 HIDDEN = 512
 HEADS = 4
@@ -47,9 +44,8 @@ def _make_inputs(key, seqlen, hidden=HIDDEN, dtype=jnp.bfloat16):
     )
 
 
-# window values straddle the kv_chunk boundaries: 1 (only the new token),
-# 64 (inside one chunk), 130 (spans a partial chunk at chunk=128), and
-# seq+1 (must equal full attention)
+# window values: 1 (only the new token), 64, 130, 100 (start mid-way
+# through the cache), and seq+1 (must equal full attention)
 @pytest.mark.parametrize("seqlen,window", [
     (37, 1), (37, 64), (256, 64), (256, 130), (256, 257), (400, 100),
 ])
@@ -59,12 +55,11 @@ def test_single_layer_window_matches_oracle(seqlen, window):
                                jnp.float32) * math.pi
     cos, sin = jnp.cos(angle), jnp.sin(angle)
     eps = 1e-5
-    kcfg = KernelConfig(kv_chunk=128)
 
     got = llama_decoder_layer_sglang(
         d["input"], d["residual"], d["w_qkv"], d["w_o"],
         d["k_cache"], d["v_cache"], d["rms_w"], eps, cos, sin,
-        kernel_config=kcfg, window=window)
+        window=window)
     want = llama_decoder_layer_sglang_ref(
         d["input"], d["residual"], d["w_qkv"], d["w_o"],
         d["k_cache"], d["v_cache"], d["rms_w"], eps, cos, sin,
@@ -75,24 +70,31 @@ def test_single_layer_window_matches_oracle(seqlen, window):
 
 
 def test_single_layer_full_window_equals_no_window():
-    """window >= seq+1 must reproduce full attention exactly (the index-map
-    clamp degenerates to a no-op and every mask is all-true)."""
+    """window >= seq+1 must reproduce full attention exactly (every mask
+    is all-true)."""
     seqlen = 256
     d = _make_inputs(jax.random.PRNGKey(3), seqlen)
     angle = jax.random.uniform(jax.random.PRNGKey(99), (HEAD_DIM // 2,),
                                jnp.float32) * math.pi
     cos, sin = jnp.cos(angle), jnp.sin(angle)
-    kcfg = KernelConfig(kv_chunk=128)
     args = (d["input"], d["residual"], d["w_qkv"], d["w_o"],
             d["k_cache"], d["v_cache"], d["rms_w"], 1e-5, cos, sin)
-    full = llama_decoder_layer_sglang(*args, kernel_config=kcfg, window=0)
-    wide = llama_decoder_layer_sglang(*args, kernel_config=kcfg,
-                                      window=seqlen + 1)
+    full = llama_decoder_layer_sglang(*args, window=0)
+    wide = llama_decoder_layer_sglang(*args, window=seqlen + 1)
     np.testing.assert_array_equal(np.asarray(full[0], np.float32),
                                   np.asarray(wide[0], np.float32))
 
 
-# --- whole-stack megakernel (the round-3 advisor's bug site) --------------
+# --- decode step -------------------------------------------------------------
+
+
+def _f32_step(params, kc, vc, tok, pos, cfg):
+    """The same decode step with params and caches in fp32 at highest
+    matmul precision."""
+    with jax.default_matmul_precision("highest"):
+        return model.decode_step(model.upcast(params), model.upcast(kc),
+                                 model.upcast(vc), tok, pos, cfg)
+
 
 def _stack_setup(window, cap=512, pos_i=400, seed=11):
     cfg = LlamaConfig.tiny(max_seq_len=cap, sliding_window=window)
@@ -105,18 +107,14 @@ def _stack_setup(window, cap=512, pos_i=400, seed=11):
     return cfg, params, kc, vc, pos_i
 
 
-# the advisor's repro geometry: seq=400, chunk=128, window=100 — the
-# window starts mid-chunk (first in-window chunk is partially masked)
+# seq=400 with window=100: the window starts mid-way through the cache
 @pytest.mark.parametrize("window", [100, 130, 256])
 def test_stack_window_fused_matches_eager(window):
     cfg, params, kc, vc, pos_i = _stack_setup(window)
-    kcfg = KernelConfig(kv_chunk=128)
     tok = jnp.asarray(7, jnp.int32)
     pos = jnp.asarray(pos_i, jnp.int32)
-    lf, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg, kcfg=kcfg,
-                                 fused=True)
-    le, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg, kcfg=kcfg,
-                                 fused=False)
+    lf, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg)
+    le, _, _ = _f32_step(params, kc, vc, tok, pos, cfg)
     a, b = np.asarray(lf, np.float32), np.asarray(le, np.float32)
     scale = max(float(np.max(np.abs(b))), 1.0)
     assert np.max(np.abs(a - b)) < 0.08 * scale, window
@@ -127,31 +125,25 @@ def test_stack_window_differs_from_full_attention():
     small window must actually change the logits vs full attention."""
     cfg, params, kc, vc, pos_i = _stack_setup(window=100)
     cfg_full = dataclasses.replace(cfg, sliding_window=0)
-    kcfg = KernelConfig(kv_chunk=128)
     tok = jnp.asarray(7, jnp.int32)
     pos = jnp.asarray(pos_i, jnp.int32)
-    lw, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg, kcfg=kcfg,
-                                 fused=True)
-    lfull, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg_full,
-                                    kcfg=kcfg, fused=True)
+    lw, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg)
+    lfull, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg_full)
     assert float(jnp.max(jnp.abs(lw - lfull))) > 1e-3
 
 
 def test_stack_full_window_equals_no_window():
-    """window >= seq+1 == full attention on the stack megakernel."""
+    """window >= seq+1 == full attention on the decode step."""
     cfg, params, kc, vc, pos_i = _stack_setup(window=512)
     cfg_full = dataclasses.replace(cfg, sliding_window=0)
-    kcfg = KernelConfig(kv_chunk=128)
     tok = jnp.asarray(7, jnp.int32)
     pos = jnp.asarray(pos_i, jnp.int32)     # pos_i=400: window 512 >= seq+1
-    lw, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg, kcfg=kcfg,
-                                 fused=True)
-    lfull, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg_full,
-                                    kcfg=kcfg, fused=True)
+    lw, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg)
+    lfull, _, _ = model.decode_step(params, kc, vc, tok, pos, cfg_full)
     np.testing.assert_array_equal(np.asarray(lw), np.asarray(lfull))
 
 
-# --- flash prefill ---------------------------------------------------------
+# --- prefill -----------------------------------------------------------------
 
 @pytest.mark.parametrize("window", [64, 130, 1000])
 def test_prefill_flash_window_matches_eager(window):
@@ -159,43 +151,37 @@ def test_prefill_flash_window_matches_eager(window):
     params = model.init_params(cfg, jax.random.PRNGKey(5))
     kc, vc = model.init_cache(cfg)
     toks = (jnp.arange(300, dtype=jnp.int32) * 13 + 1) % cfg.vocab_size
-    lf, kf, vf = model.prefill(params, kc, vc, toks, cfg, flash=True)
-    le, ke, ve = model.prefill(params, kc, vc, toks, cfg, flash=False)
-    a, b = np.asarray(lf, np.float32), np.asarray(le, np.float32)
+    lf, kf, vf = model.prefill(params, kc, vc, toks, cfg)
+    b = np.asarray(model.reference_logits(params, toks, cfg))
+    a = np.asarray(lf, np.float32)
     scale = max(float(np.max(np.abs(b))), 1.0)
     assert np.max(np.abs(a - b)) < 0.08 * scale
-    np.testing.assert_allclose(np.asarray(kf, np.float32),
-                               np.asarray(ke, np.float32), atol=0.05)
 
 
 def test_prefill_then_windowed_decode_consistency():
-    """End-to-end Mistral-style flow: windowed prefill then windowed fused
-    decode must track the eager path step by step."""
+    """End-to-end Mistral-style flow: windowed prefill then windowed
+    decode must track the fp32 oracle step by step."""
     cfg = LlamaConfig.tiny(max_seq_len=512, sliding_window=100)
     params = model.init_params(cfg, jax.random.PRNGKey(6))
     kc, vc = model.init_cache(cfg)
     toks = (jnp.arange(150, dtype=jnp.int32) * 11 + 2) % cfg.vocab_size
+    feed = jnp.asarray([9, 31, 200], jnp.int32)
     _, kc, vc = model.prefill(params, kc, vc, toks, cfg)
-    kcf, vcf, kce, vce = kc, vc, kc, vc
-    tok = jnp.asarray(9, jnp.int32)
+    want = model.reference_logits(params, jnp.concatenate([toks, feed]), cfg)
     for step in range(3):
         pos = jnp.asarray(len(toks) + step, jnp.int32)
-        lf, kcf, vcf = model.decode_step(params, kcf, vcf, tok, pos, cfg,
-                                         fused=True)
-        le, kce, vce = model.decode_step(params, kce, vce, tok, pos, cfg,
-                                         fused=False)
-        err = float(jnp.max(jnp.abs(lf - le)))
+        lf, kc, vc = model.decode_step(params, kc, vc, feed[step], pos, cfg)
+        err = float(jnp.max(jnp.abs(lf - want[len(toks) + step])))
         assert err < 0.1, f"step {step}: {err}"
-        tok = jnp.argmax(le).astype(jnp.int32)
 
 
 # --- paged serving ---------------------------------------------------------
 
 def test_window_serving_matches_single_seq():
-    """Continuous-batching serving with sliding_window (the paged kernels
-    skip below-window page gathers) must equal the windowed fused
+    """Continuous-batching serving with sliding_window (rolling page
+    buffer, below-window pages masked) must equal the windowed
     single-sequence greedy decode."""
-    from clusterfusion_tpu.runtime.serving import ServingEngine
+    from clusterfusion.runtime.serving import ServingEngine
     cfg = LlamaConfig.tiny(max_seq_len=64, sliding_window=12)
     params = model.init_params(cfg, jax.random.PRNGKey(13))
 
@@ -208,7 +194,7 @@ def test_window_serving_matches_single_seq():
         for _ in range(n_gen - 1):
             lg, kc, vc = model.decode_step(
                 params, kc, vc, jnp.asarray(toks[-1], jnp.int32),
-                jnp.asarray(pos, jnp.int32), cfg, fused=True)
+                jnp.asarray(pos, jnp.int32), cfg)
             toks.append(int(jnp.argmax(lg)))
             pos += 1
         return toks
@@ -216,37 +202,34 @@ def test_window_serving_matches_single_seq():
     # prompt longer than the window: the window actually bites during
     # decode (positions 0..len-12 are masked out)
     prompts = {0: list(range(1, 21)), 1: [4, 5, 6]}
-    for impl in ("batched", "fused"):     # both serving step kernels
-        eng = ServingEngine(params, cfg, page_size=8, num_pages=64,
-                            max_batch=4, step_impl=impl)
-        for rid, p in prompts.items():
-            eng.submit(rid, p, max_gen_len=4, temperature=0.0)
-        out = eng.run()
-        for rid, p in prompts.items():
-            assert out[rid] == ref_greedy(p, 4), (impl, rid)
+    eng = ServingEngine(params, cfg, page_size=8, num_pages=64, max_batch=4)
+    for rid, p in prompts.items():
+        eng.submit(rid, p, max_gen_len=4, temperature=0.0)
+    out = eng.run()
+    for rid, p in prompts.items():
+        assert out[rid] == ref_greedy(p, 4), rid
 
 
 @pytest.mark.parametrize("quant,kv", [("int8", "int8"), ("int4", "int8"),
                                       ("int4", "fp8")])
 def test_window_quant_kv_matrix(quant, kv):
-    """Window x weight-quant x 8-bit KV interactions: the windowed chunk
-    aliasing must compose with int8 scale-plane blocks and fp8 decode."""
-    from clusterfusion_tpu.ops.quant import quantize_llama_params
+    """Window x weight-quant x 8-bit KV interactions: the window mask must
+    compose with int8 scale planes and fp8 reads."""
+    from clusterfusion.ops.quant import quantize_llama_params
     cfg = LlamaConfig.tiny(max_seq_len=512, sliding_window=100)
     params = model.init_params(cfg, jax.random.PRNGKey(31))
     params = quantize_llama_params(params, quant, 128)
     kv_dtype = "int8" if kv == "int8" else jnp.float8_e4m3fn
     kcf, vcf = model.init_cache(cfg, dtype=kv_dtype)
     kce, vce = kcf, vcf
-    # both paths start from the same (zero) history and decode 3 windowed
-    # steps at positions past the window; rows they append feed later steps
+    # both precisions start from the same (zero) history and decode 3
+    # windowed steps at positions past the window; rows they append feed
+    # later steps
     tok = jnp.asarray(7, jnp.int32)
     for step in range(200, 203):
         pos = jnp.asarray(step, jnp.int32)
-        lf, kcf, vcf = model.decode_step(params, kcf, vcf, tok, pos, cfg,
-                                         fused=True)
-        le, kce, vce = model.decode_step(params, kce, vce, tok, pos, cfg,
-                                         fused=False)
+        lf, kcf, vcf = model.decode_step(params, kcf, vcf, tok, pos, cfg)
+        le, kce, vce = _f32_step(params, kce, vce, tok, pos, cfg)
     a, b = np.asarray(lf, np.float32), np.asarray(le, np.float32)
     assert np.all(np.isfinite(a)), (quant, kv)
     scale = max(float(np.max(np.abs(b))), 1.0)
@@ -257,7 +240,7 @@ def test_rolling_buffer_scheduler():
     """Rolling page buffer (native scheduler window mode): a windowed
     request's REAL page count caps at window_pages; below-window table
     slots become the NULL page; recycled ids move to the tail slot."""
-    from clusterfusion_tpu.runtime.native import PagedKVScheduler
+    from clusterfusion.runtime.native import PagedKVScheduler
     s = PagedKVScheduler(num_pages=8, page_size=4, max_pages_per_req=8)
     s.set_window_pages(2)
     s.add(1, prompt_len=13)             # 4 slots (13+1 over page 4)
@@ -286,7 +269,7 @@ def test_rolling_buffer_serving_capacity():
     """With the rolling buffer, long windowed generations run in a pool
     that full-context serving could not fit, and still match the windowed
     single-sequence greedy decode."""
-    from clusterfusion_tpu.runtime.serving import ServingEngine
+    from clusterfusion.runtime.serving import ServingEngine
     cfg = LlamaConfig.tiny(max_seq_len=64, sliding_window=12)
     params = model.init_params(cfg, jax.random.PRNGKey(14))
     prompt = list(range(1, 25))         # 24 cached + 16 generated = 40 toks
@@ -316,19 +299,21 @@ def test_rolling_buffer_serving_capacity():
         assert gap < 0.02 * scale, (i, tok, gap)
         lg, kc, vc = model.decode_step(
             params, kc, vc, jnp.asarray(tok, jnp.int32),
-            jnp.asarray(pos, jnp.int32), cfg, fused=True)
+            jnp.asarray(pos, jnp.int32), cfg)
         pos += 1
 
 
-# --- n-row verify megakernel ----------------------------------------------
+# --- n-row verify ------------------------------------------------------------
 
 @pytest.mark.parametrize("window", [100, 401])
 def test_verify_window_fused_matches_eager(window):
     cfg, params, kc, vc, pos_i = _stack_setup(window, seed=21)
     toks = (jnp.arange(4, dtype=jnp.int32) * 3 + 2) % cfg.vocab_size
     pos = jnp.asarray(pos_i, jnp.int32)
-    lf, kf, vf = spec.verify_step(params, kc, vc, toks, pos, cfg, fused=True)
-    le, ke, ve = spec.verify_step(params, kc, vc, toks, pos, cfg, fused=False)
+    lf, kf, vf = spec.verify_step(params, kc, vc, toks, pos, cfg)
+    with jax.default_matmul_precision("highest"):
+        le, ke, ve = spec.verify_step(model.upcast(params), model.upcast(kc),
+                                      model.upcast(vc), toks, pos, cfg)
     scale = max(float(jnp.max(jnp.abs(le))), 1.0)
     assert float(jnp.max(jnp.abs(lf - le))) < 0.06 * scale, window
     np.testing.assert_allclose(np.asarray(kf, np.float32),
